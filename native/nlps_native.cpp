@@ -1,6 +1,6 @@
-// nlps_native — C++ runtime components for nlpartsol_tpu.
+// nlps_native — C++ runtime components for nlpartsol.
 //
-// TPU-native equivalents of the reference's host-side C runtime
+// Native equivalents of the reference's host-side C runtime
 // (/root/reference/nl-partsol/src/Nodes/Read-GID-Mesh.c:49 parser;
 // src/InOutFun/Read_GramsBox.c:57-150 topology build: node→element
 // adjacency via get_sourrounding_elements (an O(Nnodes·Nelem) scan there),

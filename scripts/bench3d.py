@@ -1,11 +1,10 @@
-"""3D explicit fused-Pallas step benchmark (VERDICT r1 #4 'done' criterion:
-a 3D bench number; BASELINE config 5 is 3D).
+"""3D explicit fused-Pallas step benchmark.
 
 Same accounting as bench.py (end-to-end nnz/s of the full explicit LME
 step, scanned) on a 3D problem: N³ node grid, 1 particle/cell over the
 central half, K = (2w+1)³ = 343 window (γ = 3).
 
-Run on TPU:  python scripts/bench3d.py
+Run on a GPU:  python scripts/bench3d.py
 Env: BENCH_GRID (default 96), BENCH_STEPS (default 10),
      BENCH_TRANSFER (pallas | windowed).
 """
@@ -23,8 +22,8 @@ import numpy as np
 def build_problem3(n_side=96, ppc=1):
     import jax.numpy as jnp
 
-    from nlpartsol_tpu.types import Grid, make_particles
-    from nlpartsol_tpu.models import materials as M
+    from nlpartsol.types import Grid, make_particles
+    from nlpartsol.models import materials as M
 
     h = 1.0 / (n_side - 1)
     grid = Grid(dims=(n_side,) * 3, spacing=h, origin=(0.0, 0.0, 0.0))
@@ -53,17 +52,17 @@ def build_problem3(n_side=96, ppc=1):
 def main():
     import jax
 
-    os.makedirs("/root/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nlpartsol.utils import compile_cache
+
+    compile_cache.enable()
     import jax.numpy as jnp
 
-    from nlpartsol_tpu.formulations.explicit import (
+    from nlpartsol.formulations.explicit import (
         ExplicitConfig, explicit_step, to_slot_layout,
     )
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.ops import windowed
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.models import materials as M
+    from nlpartsol.ops import windowed
+    from nlpartsol.shapefun import lme
 
     n_steps = int(os.environ.get("BENCH_STEPS", "10"))
     n_side = int(os.environ.get("BENCH_GRID", "96"))
@@ -83,9 +82,8 @@ def main():
         transfer=transfer,
         active_box=box,
         # 3D default: per-step local rebin.  The 2D-style amortisation
-        # LOSES here: the margin-1 window is K1=9 -> 729 basis offsets vs
-        # 343, and the measured step got slower (298 ms at k=8 vs 166 ms at
-        # k=1 on the v5e) — the 3D kernels are sweep-bound, not rebin-bound
+        # widens the window to K1=9 -> 729 basis offsets vs 343; whether
+        # that pays on the GPU is not measured
         rebin_mode="local",
         rebin_every=int(os.environ.get("BENCH_REBIN_EVERY", "1")),
     )

@@ -1,4 +1,4 @@
-"""Unstructured-mesh meshfree-LME benchmark (VERDICT r4 #8).
+"""Unstructured-mesh meshfree-LME benchmark.
 
 The reference's flagship configuration is meshfree LME over the node
 cloud of an unstructured GiD mesh (GramsShapeFun Type=LME;
@@ -7,7 +7,7 @@ tributary sets).  This measures the full explicit LME step on a
 genuinely non-Cartesian perturbed T3 triangulation through the
 configured transfer engine, with the same nnz/s accounting as bench.py.
 
-Run on TPU:  python scripts/bench_femesh.py
+Run on a GPU:  python scripts/bench_femesh.py
 Env: BENCH_NX (node grid edge, default 192), BENCH_STEPS (default 10),
      BENCH_TRANSFER (scatter | binned).
 """
@@ -25,10 +25,10 @@ import numpy as np
 def build_problem(nx=192, perturb=0.2, seed=0):
     import jax.numpy as jnp
 
-    from nlpartsol_tpu.shapefun import femesh
-    from nlpartsol_tpu.shapefun import lme as lme_mod
-    from nlpartsol_tpu.types import make_particles
-    from nlpartsol_tpu.models import materials as M
+    from nlpartsol.shapefun import femesh
+    from nlpartsol.shapefun import lme as lme_mod
+    from nlpartsol.types import make_particles
+    from nlpartsol.models import materials as M
 
     rng = np.random.default_rng(seed)
     L = 1.0
@@ -80,13 +80,13 @@ def build_problem(nx=192, perturb=0.2, seed=0):
 def main():
     import jax
 
-    os.makedirs("/root/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nlpartsol.utils import compile_cache
 
-    from nlpartsol_tpu.formulations.explicit import ExplicitConfig, run
-    from nlpartsol_tpu.formulations.courant import courant_dt
-    from nlpartsol_tpu.models import materials as M
+    compile_cache.enable()
+
+    from nlpartsol.formulations.explicit import ExplicitConfig, run
+    from nlpartsol.formulations.courant import courant_dt
+    from nlpartsol.models import materials as M
 
     n_steps = int(os.environ.get("BENCH_STEPS", "10"))
     nx = int(os.environ.get("BENCH_NX", "192"))

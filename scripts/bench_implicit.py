@@ -4,7 +4,7 @@ Measures wall time per implicit step (Newton + Jacobi-preconditioned CG,
 matrix-free JVP tangent) and edge throughput on the bench problem, for both
 the fused-Pallas and the XLA windowed transfer engines.
 
-Run on TPU:  python scripts/bench_implicit.py
+Run on a GPU:  python scripts/bench_implicit.py
 Env: BENCH_GRID (default 256), BENCH_STEPS (default 5).
 """
 
@@ -21,17 +21,17 @@ import numpy as np
 def main():
     import jax
 
-    os.makedirs("/root/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nlpartsol.utils import compile_cache
+
+    compile_cache.enable()
     import jax.numpy as jnp
 
     from bench import build_problem
-    from nlpartsol_tpu.formulations.explicit import to_slot_layout
-    from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.ops import windowed
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.formulations.explicit import to_slot_layout
+    from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol.models import materials as M
+    from nlpartsol.ops import windowed
+    from nlpartsol.shapefun import lme
 
     n_side = int(os.environ.get("BENCH_GRID", "256"))
     n_steps = int(os.environ.get("BENCH_STEPS", "5"))

@@ -1,17 +1,17 @@
 """Two-phase (upw) step benchmark: fused-pallas vs XLA windowed engine.
 
-Explicit mode (default; VERDICT r3 #4 'done' criterion: the geotech
-flagship through the fused kernels, target >= 5x the windowed engine):
+Explicit mode (default; the geotech flagship through the fused
+transfers):
 same accounting as bench.py — end-to-end nnz/s of the full two-phase step
 (3 fused scatters + 5 fused gathers + constitutive + Darcy/mass-balance)
 under lax.scan.
 
---implicit (VERDICT r4 #4): the monolithic u-pw Newmark-beta step
+--implicit: the monolithic u-pw Newmark-beta step
 (upw_newmark_step) — the reference's most expensive path (dense LAPACK LU
 per NR iteration, U-pw-Newmark-beta.c:2238) — fused Newton-GMRES vs the
 windowed engine, at an implicit-sized dt (20x the explicit CFL step).
 
-Run on TPU:  python scripts/bench_upw.py [--implicit]
+Run on a GPU:  python scripts/bench_upw.py [--implicit]
 Env: BENCH_GRID (default 512 explicit / 256 implicit), BENCH_STEPS
      (default 16 / 8), BENCH_ENGINES (comma list, 'pallas,windowed').
 """
@@ -29,20 +29,20 @@ import numpy as np
 def main_implicit():
     import jax
 
-    os.makedirs("/root/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nlpartsol.utils import compile_cache
+
+    compile_cache.enable()
     import jax.numpy as jnp
 
     from bench import build_problem
-    from nlpartsol_tpu.formulations.explicit import to_slot_layout
-    from nlpartsol_tpu.formulations.upw import (
+    from nlpartsol.formulations.explicit import to_slot_layout
+    from nlpartsol.formulations.upw import (
         UpwImplicitConfig, init_mixture_state, make_mixture_table,
         upw_newmark_step,
     )
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.ops import windowed
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.models import materials as M
+    from nlpartsol.ops import windowed
+    from nlpartsol.shapefun import lme
 
     n_steps = int(os.environ.get("BENCH_STEPS", "8"))
     n_side = int(os.environ.get("BENCH_GRID", "256"))
@@ -120,19 +120,19 @@ def main_implicit():
 def main():
     import jax
 
-    os.makedirs("/root/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nlpartsol.utils import compile_cache
+
+    compile_cache.enable()
     import jax.numpy as jnp
 
     from bench import build_problem
-    from nlpartsol_tpu.formulations.explicit import to_slot_layout
-    from nlpartsol_tpu.formulations.upw import (
+    from nlpartsol.formulations.explicit import to_slot_layout
+    from nlpartsol.formulations.upw import (
         UpwConfig, init_mixture_state, make_mixture_table, upw_step,
     )
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.ops import windowed
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.models import materials as M
+    from nlpartsol.ops import windowed
+    from nlpartsol.shapefun import lme
 
     n_steps = int(os.environ.get("BENCH_STEPS", "16"))
     n_side = int(os.environ.get("BENCH_GRID", "512"))

@@ -1,6 +1,5 @@
 """Build the reference NL-PartSol binary WITHOUT PETSc (the dense-LAPACK
-subset) for end-to-end head-to-head runs (BASELINE.md correctness gate;
-VERDICT r2 #4).
+subset) for end-to-end head-to-head runs (BASELINE.md correctness gate).
 
 What it builds: the full reference tree (driver + InOutFun + Nodes +
 Particles + Constitutive + Matlib + Formulations) with

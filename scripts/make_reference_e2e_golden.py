@@ -1,5 +1,5 @@
 """Produce the END-TO-END golden trajectory from the reference binary
-(BASELINE.md correctness gate at the formulation level; VERDICT r2 #4).
+(BASELINE.md correctness gate at the formulation level).
 
 Pipeline (fully reproducible):
   1. scripts/build_reference_subset.py — builds /tmp/refbuild/nl-partsol:

@@ -1,4 +1,4 @@
-"""Profile the headline bench step on the real TPU (PERF.md accounting).
+"""Profile the headline bench step on the GPU (PERF.md accounting).
 
 Runs the exact bench.py problem, times the warm scan, and captures a
 jax.profiler trace of a few scan invocations.  Prints a JSON timing line
@@ -18,18 +18,18 @@ import numpy as np
 def main():
     import jax
 
-    os.makedirs("/root/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nlpartsol.utils import compile_cache
+
+    compile_cache.enable()
     import jax.numpy as jnp
 
     import bench
-    from nlpartsol_tpu.formulations.explicit import (
+    from nlpartsol.formulations.explicit import (
         ExplicitConfig, explicit_step, to_slot_layout,
     )
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.ops import windowed
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.models import materials as M
+    from nlpartsol.ops import windowed
+    from nlpartsol.shapefun import lme
 
     n_steps = int(os.environ.get("BENCH_STEPS", "30"))
     grid, p, mats, h = bench.build_problem(
@@ -134,17 +134,18 @@ def dump_hlo(path="/tmp/many_steps_hlo.txt"):
     """Dump the optimized HLO of the bench scan for fusion attribution."""
     import jax
 
-    os.makedirs("/root/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/jaxcache")
+    from nlpartsol.utils import compile_cache
+
+    compile_cache.enable()
     import jax.numpy as jnp
 
     import bench
-    from nlpartsol_tpu.formulations.explicit import (
+    from nlpartsol.formulations.explicit import (
         ExplicitConfig, explicit_step, to_slot_layout,
     )
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.ops import windowed
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.models import materials as M
+    from nlpartsol.ops import windowed
+    from nlpartsol.shapefun import lme
 
     n_steps = int(os.environ.get("BENCH_STEPS", "30"))
     grid, p, mats, h = bench.build_problem(

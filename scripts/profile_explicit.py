@@ -1,8 +1,8 @@
-"""Per-stage timing breakdown of the explicit Pallas step (VERDICT r1 #2).
+"""Per-stage timing breakdown of the explicit Pallas step.
 
 Times each pipeline stage in isolation on the real device (jit + scan of the
 stage alone, amortised over many iterations) and prints a table plus the
-implied roofline numbers.  Run on TPU:  python scripts/profile_explicit.py
+implied roofline numbers.  Run on a GPU:  python scripts/profile_explicit.py
 """
 
 import os
@@ -28,16 +28,16 @@ def timeit(fn, *args, iters=20):
 
 def main():
     from bench import build_problem
-    from nlpartsol_tpu.formulations.explicit import (
+    from nlpartsol.formulations.explicit import (
         ExplicitConfig,
         explicit_step,
         to_slot_layout,
     )
-    from nlpartsol_tpu.models import dispatch as con
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.ops import pallas_transfer as pt
-    from nlpartsol_tpu.ops import windowed
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.models import dispatch as con
+    from nlpartsol.models import materials as M
+    from nlpartsol.ops import pallas_transfer as pt
+    from nlpartsol.ops import windowed
+    from nlpartsol.shapefun import lme
 
     n_side = int(os.environ.get("BENCH_GRID", "512"))
     grid, p, mats, h = build_problem(n_side=n_side, ppc=2)

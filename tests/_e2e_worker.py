@@ -21,7 +21,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from nlpartsol_tpu import config
+from nlpartsol import config
 
 config.set_dtype("float64")
 
@@ -30,10 +30,10 @@ import jax.numpy as jnp
 
 
 def main():
-    from nlpartsol_tpu.driver import make_step_config
-    from nlpartsol_tpu.formulations.dem import dem_step
-    from nlpartsol_tpu.io.builder import build_simulation
-    from nlpartsol_tpu.models.materials import (
+    from nlpartsol.driver import make_step_config
+    from nlpartsol.formulations.dem import dem_step
+    from nlpartsol.io.builder import build_simulation
+    from nlpartsol.models.materials import (
         SAINT_VENANT_KIRCHHOFF, lame_parameters,
     )
 

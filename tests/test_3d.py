@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig, explicit_step
-from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-from nlpartsol_tpu.formulations.courant import courant_dt, celerity
-from nlpartsol_tpu.shapefun import lme
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.models import materials as M
+from nlpartsol.formulations.explicit import ExplicitConfig, explicit_step
+from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+from nlpartsol.formulations.courant import courant_dt, celerity
+from nlpartsol.shapefun import lme
 
 E_, RHO = 1e7, 1000.0
 C = celerity(E_, RHO)

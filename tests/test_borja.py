@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.models.borja import borja_frictional
-from nlpartsol_tpu.models import hyperelastic
+from nlpartsol.models.borja import borja_frictional
+from nlpartsol.models import hyperelastic
 
 E_, NU = 1e8, 0.3
 PARAMS = dict(

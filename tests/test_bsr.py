@@ -5,20 +5,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.formulations.courant import courant_dt
-from nlpartsol_tpu.formulations.implicit import (
+from nlpartsol.formulations.courant import courant_dt
+from nlpartsol.formulations.implicit import (
     ImplicitConfig,
     assemble_tangent,
     implicit_step,
     newmark_parameters,
     run,
 )
-from nlpartsol_tpu.formulations import kinematics as kin
-from nlpartsol_tpu.formulations.common import make_engine, shapefun_eval
-from nlpartsol_tpu.models import dispatch as con
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.ops import bsr, windowed
-from nlpartsol_tpu.ops.solvers import pcg
+from nlpartsol.formulations import kinematics as kin
+from nlpartsol.formulations.common import make_engine, shapefun_eval
+from nlpartsol.models import dispatch as con
+from nlpartsol.models import materials as M
+from nlpartsol.ops import bsr, windowed
+from nlpartsol.ops.solvers import pcg
 
 from tests.test_explicit import bar_setup, C
 

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.models import hyperelastic, materials as M
-from nlpartsol_tpu.models.vonmises import von_mises
-from nlpartsol_tpu.models.druckerprager import drucker_prager, cone_parameters
-from nlpartsol_tpu.models.dispatch import stress_integration
+from nlpartsol.models import hyperelastic, materials as M
+from nlpartsol.models.vonmises import von_mises
+from nlpartsol.models.druckerprager import drucker_prager, cone_parameters
+from nlpartsol.models.dispatch import stress_integration
 
 E_, NU = 1e7, 0.3
 LAM = E_ * NU / ((1 + NU) * (1 - 2 * NU))
@@ -284,7 +284,7 @@ def test_mooney_rivlin_stress_is_energy_consistent():
 
 
 def test_bingham_reduces_to_newtonian_and_yield_limit():
-    from nlpartsol_tpu.models.fluid import bingham_fluid, newtonian_fluid
+    from nlpartsol.models.fluid import bingham_fluid, newtonian_fluid
 
     rng = np.random.default_rng(6)
     F = jnp.asarray(np.eye(3) + 0.05 * rng.standard_normal((3, 3, 3)), jnp.float64)
@@ -316,7 +316,7 @@ def test_bingham_reduces_to_newtonian_and_yield_limit():
 def test_modified_lade_duncan_reduces_to_lade_duncan_at_m0():
     """MLD with m=0 is exactly Lade-Duncan (harness eval_K1: the (pa/I1)^m
     factor degenerates to 1, Frictional-Monolithic.c:659-667)."""
-    from nlpartsol_tpu.models.borja import borja_frictional
+    from nlpartsol.models.borja import borja_frictional
 
     Eh_tr = np.array([-0.004, -0.0015, -0.001])
     wm1 = np.expm1(2.0 * Eh_tr)
@@ -353,8 +353,8 @@ def test_modified_lade_duncan_reduces_to_lade_duncan_at_m0():
 def test_dispatch_includes_new_kinds():
     """Bingham / Mooney-Rivlin / Modified-Lade-Duncan reachable through
     stress_integration + the deck material-name map."""
-    from nlpartsol_tpu.models import dispatch as con
-    from nlpartsol_tpu.io.builder import _MODEL_NAMES
+    from nlpartsol.models import dispatch as con
+    from nlpartsol.io.builder import _MODEL_NAMES
 
     for name in ("Bingham-Fluid", "Mooney-Rivlin", "Modified-Lade-Duncan"):
         assert name in _MODEL_NAMES or name in M.KIND_NAMES

@@ -12,17 +12,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.formulations.explicit import (
+from nlpartsol.formulations.explicit import (
     ExplicitConfig,
     explicit_step,
     to_slot_layout,
 )
-from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.ops import windowed
-from nlpartsol_tpu.parallel import domain
-from nlpartsol_tpu.shapefun import lme
-from nlpartsol_tpu.types import Grid, make_particles
+from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+from nlpartsol.models import materials as M
+from nlpartsol.ops import windowed
+from nlpartsol.parallel import domain
+from nlpartsol.shapefun import lme
+from nlpartsol.types import Grid, make_particles
 
 S = 8  # shards (virtual CPU devices)
 
@@ -89,7 +89,7 @@ def test_decompose_structure():
     # per-device grid memory is a strip, not the full grid
     assert dec.local_grid.n_nodes < grid.n_nodes
     assert dec.local_grid.dims[0] == dec.spec.bc + dec.spec.wlo + dec.spec.whi
-    # uneven split: auto-padded with empty cell planes (VERDICT r2 #7)
+    # uneven split: auto-padded with empty cell planes
     dec7 = domain.decompose(grid, box, 7, offs)
     assert dec7.global_box.cdims[0] % 7 == 0
     assert dec7.global_box.cdims[0] >= box.cdims[0]
@@ -151,7 +151,7 @@ def test_halo_explicit_parity_with_migration(sharded_transfer):
     p_ref = _single_device_run(grid, p, mats, cfg, n_steps)
 
     # the sharded run may use the fused-pallas engine (CPU: its XLA-fallback
-    # semantics twin) — one path for perf AND scale (VERDICT r2 #1)
+    # semantics twin) — one path for perf AND scale
     cfg = cfg.replace(transfer=sharded_transfer)
     offs = lme.offsets_for(2, lp)
     dec = domain.decompose(grid, box, S, offs)
@@ -257,9 +257,8 @@ def test_halo_implicit_parity(sharded_transfer):
 @pytest.mark.parametrize("sharded_transfer", ["windowed", "pallas"])
 def test_halo_upw_parity(sharded_transfer):
     """Sharded two-phase (upw) explicit run matches the single-device run
-    (VERDICT r2 #7: the geotech flagship formulation must run sharded) —
-    on BOTH engines (the fused-pallas upw step is new in round 4)."""
-    from nlpartsol_tpu.formulations.upw import (
+    on BOTH engines."""
+    from nlpartsol.formulations.upw import (
         UpwConfig, init_mixture_state, make_mixture_table, upw_step,
     )
 
@@ -341,7 +340,7 @@ def test_halo_upw_parity(sharded_transfer):
 def test_halo_fracture_parity(sharded_transfer):
     """Sharded eigenerosion: Beps neighbourhood sums crossing shard seams
     must match the single-device run (particle halo via
-    domain.slot_plane_halo; VERDICT r2 #7), on BOTH sharded engines (the
+    domain.slot_plane_halo), on BOTH sharded engines (the
     fused-pallas halo path calls the same _damage_update)."""
     grid, p, mats0, h, cel = _problem(vx=0.3, E=1e4)
     mats = M.material_table(
@@ -453,7 +452,7 @@ def test_halo_3d_parity(sharded_transfer):
 
 
 def test_halo_explicit_parity_kperiodic_migration():
-    """k-periodic seam migration (VERDICT r3 #1): the sharded pallas engine
+    """k-periodic seam migration: the sharded pallas engine
     with rebin_every=4 + margin-1 halos must match the per-step-rebin
     single-device run — migration fires every 4th step only."""
     grid, p, mats, h, cel = _problem(n0=41, vx=0.5)
@@ -529,7 +528,7 @@ def _problem2(n0=25, n1=17, vx=0.4, vy=0.35, E=1e4):
 
 @pytest.mark.parametrize("sharded_transfer", ["windowed", "pallas"])
 def test_2d_decomposition_explicit_parity(sharded_transfer):
-    """2-D (S0 x S1) grid decomposition (VERDICT r3 #6): two-phase halo
+    """2-D (S0 x S1) grid decomposition: two-phase halo
     exchange on both axes (corners via two hops), two-phase seam migration,
     per-axis phantom-plane masking — parity against the single-device run
     on a 2x4 virtual mesh, both engines."""

@@ -1,4 +1,4 @@
-"""float64 solver leg (VERDICT r1 #10).
+"""float64 solver leg.
 
 The solver dtype is a process-level switch (NLPS_DTYPE, config.py), so the
 f64 leg runs in a subprocess.  It quantifies what the f32 stagnation
@@ -20,15 +20,15 @@ import json, os, sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, os.environ["NLPS_REPO"])
-from nlpartsol_tpu import config
+from nlpartsol import config
 assert config.dtype().itemsize == 8, config.dtype()
 import numpy as np
 import jax.numpy as jnp
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig, run
-from nlpartsol_tpu.formulations.courant import courant_dt, celerity
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.models import materials as M
+from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+from nlpartsol.formulations.explicit import ExplicitConfig, run
+from nlpartsol.formulations.courant import courant_dt, celerity
 
 E_, RHO = 1e7, 1000.0
 C = celerity(E_, RHO)
@@ -95,7 +95,7 @@ def test_float64_leg():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    # quantify the f32-vs-f64 gap VERDICT r1 asked about: the same problem
+    # quantify the f32-vs-f64 gap: the same problem
     # in this (f32) process stalls at its noise floor; f64 must land orders
     # of magnitude lower, proving the stagnation heuristic is a dtype
     # artifact and the reference gate (TOL_NR 1e-5, Macros.h:40) is truly
@@ -110,10 +110,10 @@ def _implicit_resmax_f32():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from nlpartsol_tpu.types import Grid, make_particles
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-    from nlpartsol_tpu.formulations.courant import courant_dt, celerity
+    from nlpartsol.types import Grid, make_particles
+    from nlpartsol.models import materials as M
+    from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol.formulations.courant import courant_dt, celerity
 
     E_, RHO = 1e7, 1000.0
     C = celerity(E_, RHO)

@@ -5,7 +5,7 @@ Unit oracles: partition of unity, linear completeness (Σ N_a x_a = x,
 elements — the properties the reference's isoparametric element modules
 guarantee by construction (/root/reference/nl-partsol/src/Nodes/T3.c:100,
 Q4.c:112, T4.c, H8.c).  End-to-end: the BASELINE config-1 elastic bar
-vibration on a genuinely non-Cartesian T3 triangulation (VERDICT r1 #6).
+vibration on a genuinely non-Cartesian T3 triangulation.
 """
 
 import numpy as np
@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.shapefun import femesh
-from nlpartsol_tpu.types import make_particles
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig, run
-from nlpartsol_tpu.formulations.courant import courant_dt, celerity
+from nlpartsol.shapefun import femesh
+from nlpartsol.types import make_particles
+from nlpartsol.models import materials as M
+from nlpartsol.formulations.explicit import ExplicitConfig, run
+from nlpartsol.formulations.courant import courant_dt, celerity
 
 
 def _distorted_element(kind, rng):
@@ -125,8 +125,7 @@ C = celerity(E_, RHO)
 
 
 def test_bar_vibration_unstructured_t3():
-    """BASELINE config 1 on a non-Cartesian T3 mesh (VERDICT r1 #6 'done'
-    criterion)."""
+    """BASELINE config 1 on a non-Cartesian T3 mesh."""
     L, H = 1.0, 0.15
     coords, tris, ids = _tri_bar(nx=24, ny=3, L=L, H=H)
     n_nodes = len(coords)
@@ -196,7 +195,7 @@ def _unstructured_bar_problem():
 def test_bar_vibration_unstructured_lme():
     """Meshfree LME over the unstructured node cloud — the reference's
     flagship configuration (GramsShapeFun Type=LME on a GiD mesh)."""
-    from nlpartsol_tpu.shapefun import lme as lme_mod
+    from nlpartsol.shapefun import lme as lme_mod
 
     mesh, p, pts, mats, L = _unstructured_bar_problem()
     lp = lme_mod.LMEParams(gamma=3.0)
@@ -223,7 +222,7 @@ def test_bar_vibration_unstructured_lme():
 
 def test_implicit_unstructured_t3():
     """Implicit Newmark-β on the unstructured mesh (ScatterEngine path)."""
-    from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
 
     mesh, p, pts, mats, L = _unstructured_bar_problem()
     V = 0.01

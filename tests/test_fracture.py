@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.models import fracture, materials as M
-from nlpartsol_tpu.ops import windowed
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig, explicit_step, to_slot_layout
-from nlpartsol_tpu.formulations.courant import courant_dt
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.models import fracture, materials as M
+from nlpartsol.ops import windowed
+from nlpartsol.formulations.explicit import ExplicitConfig, explicit_step, to_slot_layout
+from nlpartsol.formulations.courant import courant_dt
 
 from tests.test_explicit import C, E_, RHO
 
@@ -164,11 +164,11 @@ def test_step_with_eigenerosion_runs():
 
 @pytest.mark.parametrize("transfer", ["windowed", "pallas"])
 def test_implicit_fracture_staggered(transfer):
-    """Implicit Newmark-beta with eigenerosion (VERDICT r3 missing #2): the
+    """Implicit Newmark-beta with eigenerosion: the
     staggered damage update fires at the converged state — pre-stretched
     band erodes, far field stays intact; windowed and pallas paths agree."""
-    from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-    from nlpartsol_tpu.shapefun import lme as lme_mod
+    from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol.shapefun import lme as lme_mod
 
     h = 0.1
     grid = Grid(dims=(17, 9), spacing=h, origin=(0.0, 0.0))

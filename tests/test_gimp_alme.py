@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.shapefun import alme, gimp, lme
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig, explicit_step
-from nlpartsol_tpu.formulations.courant import courant_dt
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.shapefun import alme, gimp, lme
+from nlpartsol.models import materials as M
+from nlpartsol.formulations.explicit import ExplicitConfig, explicit_step
+from nlpartsol.formulations.courant import courant_dt
 
 from tests.test_explicit import bar_setup, C, E_
 

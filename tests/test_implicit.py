@@ -5,16 +5,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.formulations.implicit import (
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.models import materials as M
+from nlpartsol.formulations.implicit import (
     ImplicitConfig,
     implicit_step,
     newmark_parameters,
     run,
 )
-from nlpartsol_tpu.formulations.courant import courant_dt, celerity
-from nlpartsol_tpu.ops.solvers import pcg, newton_krylov
+from nlpartsol.formulations.courant import courant_dt, celerity
+from nlpartsol.ops.solvers import pcg, newton_krylov
 
 from tests.test_explicit import bar_setup, E_, RHO, C
 
@@ -126,9 +126,9 @@ def test_implicit_dense_lu_matches_cg():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-    from nlpartsol_tpu.models import materials as M
-    from nlpartsol_tpu.types import Grid, make_particles
+    from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol.models import materials as M
+    from nlpartsol.types import Grid, make_particles
 
     nx = 6
     h = 1.0 / nx

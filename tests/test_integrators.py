@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.formulations.courant import courant_dt
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig
-from nlpartsol_tpu.formulations.integrators import (
+from nlpartsol.formulations.courant import courant_dt
+from nlpartsol.formulations.explicit import ExplicitConfig
+from nlpartsol.formulations.integrators import (
     forward_euler_step,
     generalized_alpha_parameters,
     generalized_alpha_step,
 )
-from nlpartsol_tpu.models import materials as M
+from nlpartsol.models import materials as M
 
 from tests.test_explicit import bar_setup, C, E_
 

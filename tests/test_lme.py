@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid
-from nlpartsol_tpu.shapefun import lme
+from nlpartsol.types import Grid
+from nlpartsol.shapefun import lme
 
 
 def make_grid(d, n=9, h=0.5):

@@ -4,8 +4,8 @@ GiD parser and linear-time mesh topology vs the Python implementations."""
 import numpy as np
 import pytest
 
-from nlpartsol_tpu.io import native
-from nlpartsol_tpu.io import gid_mesh
+from nlpartsol.io import native
+from nlpartsol.io import gid_mesh
 
 from tests.test_io import write_gid_quad_mesh
 

@@ -13,8 +13,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from nlpartsol_tpu.io.builder import build_simulation
-from nlpartsol_tpu.io import csv_out
+from nlpartsol.io.builder import build_simulation
+from nlpartsol.io import csv_out
 
 
 def write_gid_quad_mesh(path, nx, ny, h):
@@ -120,7 +120,7 @@ def test_nodal_csv_reactions(gravity_bar, monkeypatch, tmp_path, scheme):
     assert setup.csv_events and setup.csv_events[0]["kind"] == "nodes"
 
     monkeypatch.chdir(tmp_path)
-    from nlpartsol_tpu.driver import run_simulation
+    from nlpartsol.driver import run_simulation
 
     p, hist = run_simulation(setup, write_outputs=True, progress=False)
     path = os.path.join(setup.out_dir, "csvout", "nodes_path_0.csv")
@@ -139,10 +139,10 @@ def test_implicit_reaction_balances_weight(gravity_bar):
     base, nlp = gravity_bar
     (base / "sim.nlp").write_text(nlp("Static"))
     setup = build_simulation(str(base / "sim.nlp"))
-    from nlpartsol_tpu.driver import make_step_config
-    from nlpartsol_tpu.formulations.implicit import implicit_step
-    from nlpartsol_tpu.formulations.explicit import to_slot_layout
-    from nlpartsol_tpu.ops import windowed
+    from nlpartsol.driver import make_step_config
+    from nlpartsol.formulations.implicit import implicit_step
+    from nlpartsol.formulations.explicit import to_slot_layout
+    from nlpartsol.ops import windowed
     import jax.numpy as jnp
 
     box = windowed.default_box(setup.grid, setup.particles.x, setup.particles.active)
@@ -172,7 +172,7 @@ def test_gauss_point_evolution_event(gravity_bar, monkeypatch, tmp_path):
     assert set(ev["fields"]) == {"stress", "F", "eps"}
 
     monkeypatch.chdir(tmp_path)
-    from nlpartsol_tpu.driver import run_simulation
+    from nlpartsol.driver import run_simulation
 
     p, hist = run_simulation(setup, write_outputs=True, progress=False)
     path = os.path.join(setup.out_dir, "csvout", "particles_path_0.csv")
@@ -187,7 +187,7 @@ def test_print_convergence_monitor(gravity_bar, monkeypatch, tmp_path, capsys):
     (base / "sim.nlp").write_text(nlp("Newmark-beta-Finite-Strains"))
     setup = build_simulation(str(base / "sim.nlp"))
     monkeypatch.chdir(tmp_path)
-    from nlpartsol_tpu.driver import run_simulation
+    from nlpartsol.driver import run_simulation
 
     run_simulation(
         setup, write_outputs=False, progress=False, n_steps=3,
@@ -198,7 +198,7 @@ def test_print_convergence_monitor(gravity_bar, monkeypatch, tmp_path, capsys):
 
 
 def test_vtk_all_false_toggles_off():
-    from nlpartsol_tpu.io import vtk
+    from nlpartsol.io import vtk
 
     assert vtk.fields_from_outputs({}) == vtk._DEFAULT_FIELDS
     assert vtk.fields_from_outputs({"Out-velocity": "false"}) == ()
@@ -206,7 +206,7 @@ def test_vtk_all_false_toggles_off():
 
 
 def test_nlp_attr_vector_literal():
-    from nlpartsol_tpu.io.nlp_parser import _parse_attrs
+    from nlpartsol.io.nlp_parser import _parse_attrs
 
     a = _parse_attrs("File=x.msh, Value={0;10}, i_step=2")
     assert a["File"] == "x.msh"
@@ -225,7 +225,7 @@ def test_lme_wrapper_key(gravity_bar):
     setup = build_simulation(str(base / "sim.nlp"))
     assert setup.shapefun_params["wrapper"] == "Nelder-Mead"
     # guarded λ-solve runs and converges on a real evaluation
-    from nlpartsol_tpu.shapefun import lme
+    from nlpartsol.shapefun import lme
     import jax.numpy as jnp
 
     params = lme.LMEParams(**setup.shapefun_params)

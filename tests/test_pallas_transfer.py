@@ -1,8 +1,10 @@
-"""Fused Pallas transfer kernels vs the XLA windowed engine (oracle).
+"""Fused LME transfers vs the XLA windowed engine (oracle).
 
-Runs in Pallas interpret mode on CPU; the same code path compiles with
-Mosaic on TPU.  Parity must hold for: λ solve, N-weighted P2G, grad-weighted
-P2G (Σ G·∇N), N-gather, and the displacement-gradient gather.
+On the CPU the fused transfers run their XLA reference; the Triton kernels
+are checked against it in Pallas interpret mode at tiny shapes, and
+compiled at real widths by the tests marked ``gpu`` (chip_smoke.py runs
+them on the card).  Parity must hold for: λ solve, N-weighted P2G,
+grad-weighted P2G (Σ G·∇N), N-gather, and the displacement-gradient gather.
 """
 
 import numpy as np
@@ -10,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.ops import pallas_transfer as pt
-from nlpartsol_tpu.ops import windowed
-from nlpartsol_tpu.shapefun import lme
-from nlpartsol_tpu.formulations.explicit import to_slot_layout
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.ops import pallas_transfer as pt
+from nlpartsol.ops import windowed
+from nlpartsol.shapefun import lme
+from nlpartsol.formulations.explicit import to_slot_layout
 
 
 def _problem(seed=0, n_side=12, n_particles=150):
@@ -134,8 +136,8 @@ def test_gather_matches_windowed_g2p_and_gradient():
 def test_explicit_step_pallas_matches_windowed():
     """Full explicit step: fused-Pallas path vs windowed path, several steps
     (positions, velocities, F, stress must track within f32 tolerance)."""
-    from nlpartsol_tpu.formulations.explicit import ExplicitConfig, explicit_step
-    from nlpartsol_tpu.models import materials as M
+    from nlpartsol.formulations.explicit import ExplicitConfig, explicit_step
+    from nlpartsol.models import materials as M
 
     grid, box, p, params = _problem(seed=7, n_side=14, n_particles=200)
     rng = np.random.default_rng(8)
@@ -173,8 +175,8 @@ def test_explicit_step_pallas_matches_windowed():
 def test_rebin_every_matches_per_step_binning():
     """rebin_every=4 with the 1-cell drift margin must reproduce per-step
     binning (the radius mask makes the widened-window basis identical)."""
-    from nlpartsol_tpu.formulations.explicit import ExplicitConfig, run
-    from nlpartsol_tpu.models import materials as M
+    from nlpartsol.formulations.explicit import ExplicitConfig, run
+    from nlpartsol.models import materials as M
 
     grid, box, p, params = _problem(seed=11, n_side=9, n_particles=60)
     rng = np.random.default_rng(12)
@@ -204,52 +206,196 @@ def test_rebin_every_matches_per_step_binning():
     np.testing.assert_allclose(F4, F1, rtol=1e-5, atol=1e-7)
 
 
-def test_mosaic_kernels_interpret_parity():
-    """The REAL Mosaic kernels (interpret mode) vs the XLA fallback on a
-    tiny problem — guards the kernel code itself on CPU; TPU runs use it
-    compiled.  Covers margin=0 and the widened margin=1 window."""
-    grid, box, p, params = _problem(seed=21, n_side=8, n_particles=40)
-    sf, offsets, mask = _oracle(grid, box, p, params)
+def _tiny(margin):
+    """A box of 3 × 16 cells at capacity 2 inside a 9 × 22 grid with an
+    offset origin: one kernel tile per capacity rank, both box edges
+    inside the grid, windows clipped at the grid's edge."""
+    rng = np.random.default_rng(21 + margin)
+    h = 0.1
+    grid = Grid(dims=(9, 22), spacing=h, origin=(0.3, -0.2))
+    box = windowed.ActiveBox(offset=(3, 2), cdims=(3, 16), capacity=2)
+    n = 60
+    cell = np.stack([rng.integers(3, 6, n), rng.integers(2, 18, n)], -1)
+    x = (np.asarray(grid.origin) + (cell + rng.uniform(0.05, 0.95, (n, 2))) * h)
+    p = make_particles(
+        x.astype(np.float32),
+        mass=rng.uniform(0.5, 2.0, n).astype(np.float32),
+        vol0=np.full(n, h * h / 4, np.float32),
+    )
+    p = to_slot_layout(p, grid, box, allow_lost=True)
+    params = lme.LMEParams(gamma=3.0)
     x_t, lam_t, act_t = _tr(p, box)
     C, nc = box.capacity, box.n_cells
-    lam_conv = pt.to_channel_leading(sf["lam"], C, nc)
-    fN = pt.to_channel_leading(p.mass, C, nc)
-    rng = np.random.default_rng(22)
+    fN = jnp.stack([pt.to_channel_leading(c, C, nc)[0]
+                    for c in (p.mass, p.mass * p.x[:, 0], 2.0 * p.mass)])
     G_t = pt.to_channel_leading(
-        jnp.asarray(rng.standard_normal((p.count, 4)), jnp.float32), C, nc
-    )
+        jnp.asarray(rng.standard_normal((p.count, 4)), jnp.float32), C, nc)
     field = jnp.asarray(rng.standard_normal((grid.n_nodes, 2)), jnp.float32)
+    return grid, box, params, x_t, lam_t, act_t, fN, G_t, field
 
-    # one margin (=1, the widened window) keeps interpret cost bounded;
-    # margin=0 differs only in the static window halfwidth
-    margin = 1
-    ref_sc = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN,
-                              G_t=G_t, solve=True, margin=margin)
-    ref_ga = pt.fused_gather(grid, box, params, x_t, lam_conv, act_t,
-                             gN=field, g_grad=field, margin=margin)
-    pt.FORCE_INTERPRET = True
-    try:
-        got_sc = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN,
-                                  G_t=G_t, solve=True, margin=margin)
-        got_ga = pt.fused_gather(grid, box, params, x_t, lam_conv, act_t,
-                                 gN=field, g_grad=field, margin=margin)
-    finally:
-        pt.FORCE_INTERPRET = False
-    np.testing.assert_allclose(np.asarray(got_sc[0]), np.asarray(ref_sc[0]),
-                               rtol=2e-4, atol=1e-5)
+
+def _rel_err(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-30))
+
+
+# f32: the kernels and the reference evaluate the same expressions and sum
+# them in another order, so node sums agree to a few ulp of their largest
+# value; ∇N passes through a 2×2 inverse, which costs about one more digit.
+_TOL_N, _TOL_DN = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("margin", [0, 1])
+@pytest.mark.parametrize("case", ["solve", "G", "gnorm", "strip"])
+def test_triton_scatter_interpret_parity(case, margin):
+    """The Triton P2G kernels (Pallas interpret mode) vs the XLA reference:
+    N-weighted channels with the λ solve, Σ G·∇N, the Jacobi diagonal
+    Σ s·|∇N|², and a strip whose node planes are bounded by
+    valid_lo/valid_hi (the sharded path)."""
+    grid, box, params, x_t, lam_t, act_t, fN, G_t, _ = _tiny(margin)
+    kw = dict(solve=True, margin=margin)
+    if case in ("G", "gnorm"):
+        kw.update(G_t=G_t, solve=False, gnorm=case == "gnorm")
+    if case == "strip":
+        kw.update(valid_lo=jnp.asarray([1, 1]), valid_hi=jnp.asarray([7, 20]))
+    ref = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN, **kw)
+    got = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN,
+                           interpret=True, **kw)
+    tol = _TOL_DN if case in ("G", "gnorm") else _TOL_N
+    assert _rel_err(got[0], ref[0]) < tol
+    assert int(got[2]) == int(ref[2]) > 0
+    act = np.asarray(act_t).reshape(-1) > 0.5
+    lam_g = np.asarray(got[1]).reshape(2, -1)[:, act]
+    lam_r = np.asarray(ref[1]).reshape(2, -1)[:, act]
+    # λ ~ β·h: Newton stops at ‖r‖ ≤ tol_lambda·radius in both, from
+    # differently rounded moments
+    assert _rel_err(lam_g, lam_r) < 1e-4
+
+
+@pytest.mark.parametrize("which", ["N", "grad", "both"])
+def test_triton_gather_interpret_parity(which):
+    """The Triton G2P kernel (Pallas interpret mode) vs the XLA reference:
+    N-weighted gather, displacement gradient, and both in one call."""
+    grid, box, params, x_t, lam_t, act_t, fN, _, field = _tiny(1)
+    lam_c = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN,
+                             margin=1)[1]
+    kw = dict(gN=field if which != "grad" else None,
+              g_grad=field if which != "N" else None, margin=1)
+    ref = pt.fused_gather(grid, box, params, x_t, lam_c, act_t, **kw)
+    got = pt.fused_gather(grid, box, params, x_t, lam_c, act_t, interpret=True, **kw)
+    for g_, r_, tol in zip(got, ref, (_TOL_N, _TOL_DN)):
+        assert (g_ is None) == (r_ is None)
+        if r_ is not None:
+            assert g_.shape == r_.shape
+            assert _rel_err(g_, r_) < tol
+
+
+@pytest.mark.parametrize("platform, interpret, want", [
+    ("gpu", False, "triton"),
+    ("cpu", False, "xla"),
+    ("cpu", True, "interpret"),
+    ("gpu", True, ValueError),
+    ("metal", False, ValueError),
+    ("rocm", False, ValueError),
+])
+def test_transfer_impl_choice(platform, interpret, want):
+    """A GPU runs the compiled kernels and never interpret mode, the CPU
+    runs the reference unless a test asks for interpret mode, and any
+    other platform is refused rather than given a stand-in."""
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            pt.transfer_impl(platform, interpret)
+    else:
+        assert pt.transfer_impl(platform, interpret) == want
+
+
+def test_geometry_culls_window_rows():
+    """The kernels sweep each window row over one contiguous o1 range.
+    Radius culling keeps exactly the offsets some particle of the slot
+    cell (drifted by up to ``margin`` cells) can reach — 32 of 49 at
+    margin 0 and 60 of 81 at margin 1 for γ = 3 — and the P2G output
+    region spans the box plus the window."""
+    params = lme.LMEParams(gamma=3.0)
+    grid = Grid(dims=(40, 50), spacing=0.1, origin=(0.0, 0.0))
+    box = windowed.ActiveBox(offset=(1, 10), cdims=(20, 30), capacity=3)
+    rm = lme.support_radius(params, 1.0)
+    for margin, n in ((0, 32), (1, 60)):
+        g = pt._Geom(grid, box, params, margin)
+        assert len(g.pairs) == n
+        assert sum(hi - lo + 1 for _, lo, hi in g.rows) == n
+        # positions within the slot cell (cell units), drifted by ±margin
+        u = np.linspace(-margin, 1 + margin, 41)
+        pos = np.stack(np.meshgrid(u, u, indexing="ij"), -1).reshape(-1, 2)
+        for o0 in range(-g.w, g.w + 1):
+            for o1 in range(-g.w, g.w + 1):
+                reach = np.min(np.sum((pos - (o0, o1)) ** 2, -1)) <= rm * rm
+                assert reach == ((o0, o1) in g.pairs)
+        assert g.lo == (0, 10 - g.w)
+        assert g.hi == (20 + g.w, 39 + g.w)
+
+
+def test_valid_bounds_forms():
+    """valid_lo/valid_hi: None, an axis-0 scalar, or per-axis arrays —
+    always clipped to the local grid."""
+    grid = Grid(dims=(12, 9), spacing=0.1, origin=(0.0, 0.0))
+    box = windowed.ActiveBox(offset=(0, 0), cdims=(11, 8), capacity=1)
+    g = pt._Geom(grid, box, lme.LMEParams(), 0)
+    assert pt._valid_bounds(g, None, None).tolist() == [0, 11, 0, 8]
+    assert pt._valid_bounds(g, 2, 30).tolist() == [2, 11, 0, 8]
+    assert pt._valid_bounds(g, jnp.asarray([-1, 3]),
+                            jnp.asarray([5, 6])).tolist() == [0, 5, 3, 6]
+
+
+def _bench_inputs(n_side, seed=0):
+    """The bench problem's slot arrays (bench.py: particles in the central
+    half at 2×2 per cell, box = that half + 2 cells, capacity 6)."""
+    from bench import build_problem
+
+    grid, p, _, _ = build_problem(n_side=n_side, ppc=2)
+    box = windowed.ActiveBox(offset=(n_side // 4 - 2,) * 2,
+                             cdims=(n_side // 2 + 4,) * 2, capacity=6)
+    p = to_slot_layout(p, grid, box)
+    rng = np.random.default_rng(seed)
+    x_t, lam_t, act_t = _tr(p, box)
+    C, nc = box.capacity, box.n_cells
+    fN = jnp.stack([pt.to_channel_leading(c, C, nc)[0]
+                    for c in (p.mass, p.mass * p.v[:, 0], p.mass * p.v[:, 1])])
+    G_t = pt.to_channel_leading(
+        jnp.asarray(rng.standard_normal((p.count, 4)), jnp.float32), C, nc)
+    field = jnp.asarray(rng.standard_normal((grid.n_nodes, 2)), jnp.float32)
+    return grid, box, x_t, lam_t, act_t, fN, G_t, field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("margin", [0, 1])
+def test_triton_kernels_compiled_match_xla(gpu, margin):
+    """The compiled Triton kernels vs the XLA reference on the card, on the
+    bench problem at 256² (65,536 particles in 104,544 slots)."""
+    grid, box, x_t, lam_t, act_t, fN, G_t, field = _bench_inputs(256)
+    params = lme.LMEParams(gamma=3.0)
+    sc = pt.fused_scatter
+    ref_sc = pt._scatter_xla(grid, box, params, x_t, lam_t, act_t, fN, None, True, margin)
+    got_sc = sc(grid, box, params, x_t, lam_t, act_t, fN, margin=margin)
+    assert _rel_err(got_sc[0], ref_sc[0]) < _TOL_N
     assert int(got_sc[2]) == int(ref_sc[2])
-    sel = np.asarray(p.active)
-    np.testing.assert_allclose(np.asarray(got_ga[0])[sel],
-                               np.asarray(ref_ga[0])[sel], rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got_ga[1])[sel],
-                               np.asarray(ref_ga[1])[sel], rtol=2e-3, atol=1e-4)
+    ref_g = pt._scatter_xla(grid, box, params, x_t, ref_sc[1], act_t, fN, G_t,
+                            False, margin, gnorm=True)
+    got_g = sc(grid, box, params, x_t, ref_sc[1], act_t, fN, G_t,
+               solve=False, margin=margin, gnorm=True)
+    assert _rel_err(got_g[0], ref_g[0]) < _TOL_DN
+    ref_ga = pt._gather_xla(grid, box, params, x_t, ref_sc[1], act_t, field,
+                            field, margin)
+    got_ga = pt.fused_gather(grid, box, params, x_t, ref_sc[1], act_t,
+                             gN=field, g_grad=field, margin=margin)
+    assert _rel_err(got_ga[0], ref_ga[0]) < _TOL_N
+    assert _rel_err(got_ga[1], ref_ga[1]) < _TOL_DN
 
 
 def test_implicit_step_pallas_matches_windowed():
     """Implicit Newmark step: fused-Pallas path (custom-JVP linear ops
     through the kernels) vs the windowed path — dU, stress, convergence."""
-    from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-    from nlpartsol_tpu.models import materials as M
+    from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol.models import materials as M
 
     grid, box, p, params = _problem(seed=9, n_side=14, n_particles=180)
     rng = np.random.default_rng(10)

@@ -1,20 +1,18 @@
-"""3D fused Pallas transfer kernels vs the XLA windowed engine (oracle).
+"""3D fused LME transfers vs the XLA windowed engine (oracle).
 
-Mirrors tests/test_pallas_transfer.py for the H8-window 3D kernels
-(ops/pallas_transfer3d.py): XLA-fallback semantics parity on CPU, plus the
-REAL Mosaic kernels in interpret mode (VERDICT r1 #4 'done' criterion:
-pallas parity in 3D)."""
+Mirrors tests/test_pallas_transfer.py for the 3D path
+(ops/pallas_transfer.py: the widened-window basis in plain XLA)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.ops import pallas_transfer as pt
-from nlpartsol_tpu.ops import windowed
-from nlpartsol_tpu.shapefun import lme
-from nlpartsol_tpu.formulations.explicit import to_slot_layout
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.ops import pallas_transfer as pt
+from nlpartsol.ops import windowed
+from nlpartsol.shapefun import lme
+from nlpartsol.formulations.explicit import to_slot_layout
 
 
 def _problem3(seed=0, n_side=8, n_particles=60, gamma=5.0, tol_zero=1e-6):
@@ -117,95 +115,10 @@ def test_gather3_matches_windowed_g2p_and_gradient():
                                rtol=3e-4, atol=3e-5)
 
 
-@pytest.mark.parametrize("layout", ["rows", "merged"])
-def test_mosaic3_kernels_interpret_parity(layout):
-    """The REAL 3D Mosaic kernels (interpret mode) vs the XLA fallback —
-    guards the kernel code itself on CPU; TPU runs use it compiled.
-    Parametrized over the two kernel layouts (module docstring)."""
-    from nlpartsol_tpu.ops import pallas_transfer3d as pt3
-
-    grid, box, p, params = _problem3(seed=21, n_side=7, n_particles=30)
-    sf, offsets, mask = _oracle(grid, box, p, params)
-    x_t, lam_t, act_t = _tr(p, box)
-    C, nc = box.capacity, box.n_cells
-    lam_conv = pt.to_channel_leading(sf["lam"], C, nc)
-    fN = pt.to_channel_leading(p.mass, C, nc)
-    rng = np.random.default_rng(22)
-    G_t = pt.to_channel_leading(
-        jnp.asarray(rng.standard_normal((p.count, 9)), jnp.float32), C, nc
-    )
-    field = jnp.asarray(rng.standard_normal((grid.n_nodes, 3)), jnp.float32)
-
-    margin = 0
-    ref_sc = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN,
-                              G_t=G_t, solve=True, margin=margin)
-    ref_ga = pt.fused_gather(grid, box, params, x_t, lam_conv, act_t,
-                             gN=field, g_grad=field, margin=margin)
-    pt.FORCE_INTERPRET = True
-    pt3.LAYOUT3D = layout
-    try:
-        got_sc = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN,
-                                  G_t=G_t, solve=True, margin=margin)
-        got_ga = pt.fused_gather(grid, box, params, x_t, lam_conv, act_t,
-                                 gN=field, g_grad=field, margin=margin)
-    finally:
-        pt.FORCE_INTERPRET = False
-        pt3.LAYOUT3D = "auto"
-    np.testing.assert_allclose(np.asarray(got_sc[0]), np.asarray(ref_sc[0]),
-                               rtol=2e-4, atol=1e-5)
-    assert int(got_sc[2]) == int(ref_sc[2])
-    sel = np.asarray(p.active)
-    np.testing.assert_allclose(np.asarray(got_ga[0])[sel],
-                               np.asarray(ref_ga[0])[sel], rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got_ga[1])[sel],
-                               np.asarray(ref_ga[1])[sel], rtol=2e-3, atol=1e-4)
-
-
-@pytest.mark.parametrize("layout", ["rows", "merged"])
-def test_view_cache_and_lam_view_out(layout):
-    """make_views3 + lam_view_out round trip (the per-step view cache the
-    3D steps use; explicit.py) under both kernel layouts."""
-    from nlpartsol_tpu.ops import pallas_transfer3d as pt3
-
-    grid, box, p, params = _problem3(seed=31, n_side=7, n_particles=30)
-    x_t, lam_t, act_t = _tr(p, box)
-    C, nc = box.capacity, box.n_cells
-    fN = pt.to_channel_leading(p.mass, C, nc)
-    ref_sc = pt.fused_scatter(grid, box, params, x_t, lam_t, act_t, fN,
-                              solve=True)
-    pt.FORCE_INTERPRET = True
-    pt3.FORCE_INTERPRET = True
-    pt3.LAYOUT3D = layout
-    try:
-        xv, lamv, av = pt3.make_views3(grid, box, params, x_t, lam_t, act_t)
-        nodes, lamv2, nnz = pt.fused_scatter(
-            grid, box, params, x_t, lam_t, act_t, fN, solve=True,
-            xv=xv, lamv=lamv, av=av, lam_view_out=True,
-        )
-        lam_back = pt3.lam_from_view3(grid, box, params, lamv2)
-    finally:
-        pt.FORCE_INTERPRET = False
-        pt3.FORCE_INTERPRET = False
-        pt3.LAYOUT3D = "auto"
-    np.testing.assert_allclose(np.asarray(nodes), np.asarray(ref_sc[0]),
-                               rtol=2e-4, atol=1e-5)
-    sel = np.asarray(p.active)
-    np.testing.assert_allclose(
-        np.asarray(lam_back)[...].reshape(3, -1).T[
-            np.asarray(pt.from_channel_leading(act_t)[:, 0] > 0.5)
-        ],
-        np.asarray(pt.from_channel_leading(ref_sc[1]))[
-            np.asarray(pt.from_channel_leading(act_t)[:, 0] > 0.5)
-        ],
-        rtol=1e-4, atol=1e-5,
-    )
-    assert int(nnz) == int(ref_sc[2])
-
-
 def test_explicit_step_pallas_3d_matches_windowed():
     """Full 3D explicit step: pallas path vs windowed path over steps."""
-    from nlpartsol_tpu.formulations.explicit import ExplicitConfig, explicit_step
-    from nlpartsol_tpu.models import materials as M
+    from nlpartsol.formulations.explicit import ExplicitConfig, explicit_step
+    from nlpartsol.models import materials as M
 
     grid, box, p, params = _problem3(seed=7, n_side=9, n_particles=80)
     rng = np.random.default_rng(8)
@@ -242,8 +155,8 @@ def test_explicit_step_pallas_3d_matches_windowed():
 
 def test_implicit_step_pallas_3d_matches_windowed():
     """3D implicit Newmark step: fused-pallas custom-JVP path vs windowed."""
-    from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-    from nlpartsol_tpu.models import materials as M
+    from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol.models import materials as M
 
     grid, box, p, params = _problem3(seed=9, n_side=8, n_particles=50)
     rng = np.random.default_rng(10)

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig, explicit_step
-from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.parallel.mesh import (
+from nlpartsol.formulations.explicit import ExplicitConfig, explicit_step
+from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+from nlpartsol.models import materials as M
+from nlpartsol.parallel.mesh import (
     PARTICLE_AXIS,
     make_mesh,
     pad_particles,
@@ -22,7 +22,7 @@ from nlpartsol_tpu.parallel.mesh import (
 )
 
 from tests.test_explicit import bar_setup, C, E_, RHO
-from nlpartsol_tpu.formulations.courant import courant_dt
+from nlpartsol.formulations.courant import courant_dt
 
 
 def test_mesh_has_8_devices():

@@ -1,5 +1,4 @@
-"""END-TO-END head-to-head against the reference binary (VERDICT r2 #4;
-BASELINE.md correctness gate at the formulation level).
+"""END-TO-END head-to-head against the reference binary.
 
 The golden trajectory (tests/golden/dem_bar/trajectory.csv) is the output
 of the reference's own Discrete-Energy-Momentum implicit driver — the
@@ -29,8 +28,8 @@ import pytest
 @pytest.mark.parametrize("deck", ["dem_bar", "dem_svk_bar", "dem_bar3d"])
 def test_dem_matches_reference_binary(deck):
     """Three independent trajectories: Neo-Hookean nu=0 and
-    Saint-Venant-Kirchhoff nu=0.3 in 2D (VERDICT r3 #10), and the 3D H8 bar
-    (VERDICT r4 #7) against the nl-partsol-3d binary — the reference's
+    Saint-Venant-Kirchhoff nu=0.3 in 2D, and the 3D H8 bar
+    against the nl-partsol-3d binary — the reference's
     never-exercised 3D leg, drivable after six documented mid-refactor
     fixes (TensorLib 3D-branch typos, the U-Analisys [9]->[8] diagonal
     overflow, the 2D-gated initialise_particles, the NULL

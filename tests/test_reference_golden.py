@@ -29,9 +29,9 @@ import numpy as np
 import pytest
 import jax
 
-from nlpartsol_tpu.models.vonmises import von_mises
-from nlpartsol_tpu.models.druckerprager import drucker_prager
-from nlpartsol_tpu.models.borja import borja_frictional
+from nlpartsol.models.vonmises import von_mises
+from nlpartsol.models.druckerprager import drucker_prager
+from nlpartsol.models.borja import borja_frictional
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden")
 

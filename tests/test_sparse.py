@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nlpartsol_tpu.ops import sparse
+from nlpartsol.ops import sparse
 
 
 def dense_from_pattern(ids, mask, w, n_nodes):
@@ -73,7 +73,7 @@ class TestNonsymmetricKrylov:
         return A, b
 
     def test_bicgstab(self):
-        from nlpartsol_tpu.ops.solvers import bicgstab
+        from nlpartsol.ops.solvers import bicgstab
 
         A, b = self._system()
         res = jax.jit(
@@ -83,7 +83,7 @@ class TestNonsymmetricKrylov:
         np.testing.assert_allclose(np.asarray(res.x), x_ref, rtol=2e-4, atol=2e-5)
 
     def test_gmres(self):
-        from nlpartsol_tpu.ops.solvers import gmres
+        from nlpartsol.ops.solvers import gmres
 
         A, b = self._system(seed=1)
         res = jax.jit(
@@ -93,7 +93,7 @@ class TestNonsymmetricKrylov:
         np.testing.assert_allclose(np.asarray(res.x), x_ref, rtol=2e-4, atol=2e-5)
 
     def test_gmres_preconditioned(self):
-        from nlpartsol_tpu.ops.solvers import gmres
+        from nlpartsol.ops.solvers import gmres
 
         A, b = self._system(seed=2)
         Minv = 1.0 / np.diag(A)
@@ -108,7 +108,7 @@ class TestNonsymmetricKrylov:
         np.testing.assert_allclose(np.asarray(res.x), x_ref, rtol=2e-4, atol=2e-5)
 
     def test_bicgstab_matches_shape_2d(self):
-        from nlpartsol_tpu.ops.solvers import bicgstab
+        from nlpartsol.ops.solvers import bicgstab
 
         A, b = self._system(n=36, seed=3)
         b2 = b.reshape(12, 3)
@@ -126,7 +126,7 @@ def test_dense_lu_direct_fallback():
     (src/Linear-Solvers/dgetrs-LAPACK.c:14) as a matrix-free direct solve."""
     import numpy as np
     import jax.numpy as jnp
-    from nlpartsol_tpu.ops import solvers
+    from nlpartsol.ops import solvers
 
     rng = np.random.default_rng(0)
     n = 24

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.ops import tensor as tn
+from nlpartsol.ops import tensor as tn
 
 
 def rand_spd(rng, n, d):

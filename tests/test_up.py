@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.types import Grid, make_particles
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.formulations.implicit import ImplicitConfig, run as run_u
-from nlpartsol_tpu.formulations.up import UpConfig, up_step, run as run_up
-from nlpartsol_tpu.formulations.courant import courant_dt
+from nlpartsol.types import Grid, make_particles
+from nlpartsol.models import materials as M
+from nlpartsol.formulations.implicit import ImplicitConfig, run as run_u
+from nlpartsol.formulations.up import UpConfig, up_step, run as run_up
+from nlpartsol.formulations.courant import courant_dt
 
 from tests.test_explicit import bar_setup, E_, RHO, C
 

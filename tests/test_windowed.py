@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nlpartsol_tpu.formulations.courant import courant_dt
-from nlpartsol_tpu.formulations.explicit import ExplicitConfig, explicit_step, run
-from nlpartsol_tpu.formulations.implicit import ImplicitConfig, implicit_step
-from nlpartsol_tpu.models import materials as M
-from nlpartsol_tpu.ops import sparse, windowed
-from nlpartsol_tpu.shapefun import lme
-from nlpartsol_tpu.types import Grid, make_particles
+from nlpartsol.formulations.courant import courant_dt
+from nlpartsol.formulations.explicit import ExplicitConfig, explicit_step, run
+from nlpartsol.formulations.implicit import ImplicitConfig, implicit_step
+from nlpartsol.models import materials as M
+from nlpartsol.ops import sparse, windowed
+from nlpartsol.shapefun import lme
+from nlpartsol.types import Grid, make_particles
 
 from tests.test_explicit import bar_setup, C, E_, RHO
 
@@ -139,7 +139,7 @@ def test_fbar_nearly_incompressible_column():
     stepj = jax.jit(explicit_step, static_argnums=(3,))
     body = jnp.zeros((2,), jnp.float32)
     p_fb = to_slot = None
-    from nlpartsol_tpu.formulations.explicit import to_slot_layout
+    from nlpartsol.formulations.explicit import to_slot_layout
 
     p0 = to_slot_layout(p, grid, box)
     pa, pb = p0, p0
@@ -163,7 +163,7 @@ def test_local_rebin_matches_global_binning():
     h = 1.0 / (n_side - 1)
     grid = Grid(dims=(n_side, n_side), spacing=h, origin=(0.0, 0.0))
     x = rng.uniform(0.12, 0.88, size=(n, 2)).astype(np.float32)
-    from nlpartsol_tpu.types import make_particles
+    from nlpartsol.types import make_particles
 
     p = make_particles(
         x,
@@ -172,7 +172,7 @@ def test_local_rebin_matches_global_binning():
     )
     p = p.replace(v=jnp.asarray(rng.standard_normal((n, 2)), jnp.float32))
     box = windowed.default_box(grid, x)
-    from nlpartsol_tpu.formulations.explicit import to_slot_layout
+    from nlpartsol.formulations.explicit import to_slot_layout
 
     p0 = to_slot_layout(p, grid, box)
     # drift each particle by up to ±0.9 cells
@@ -219,11 +219,11 @@ def test_local_rebin_loses_fast_and_escaping_particles():
     h = 1.0 / (n_side - 1)
     grid = Grid(dims=(n_side, n_side), spacing=h, origin=(0.0, 0.0))
     x = np.array([[0.5, 0.5], [0.5, 0.6], [0.3, 0.3]], np.float32)
-    from nlpartsol_tpu.types import make_particles
+    from nlpartsol.types import make_particles
 
     p = make_particles(x, mass=np.ones(3, np.float32), vol0=np.ones(3, np.float32))
     box = windowed.default_box(grid, x)
-    from nlpartsol_tpu.formulations.explicit import to_slot_layout
+    from nlpartsol.formulations.explicit import to_slot_layout
 
     p0 = to_slot_layout(p, grid, box)
     # teleport one particle 3 cells away (faster than CFL allows)
